@@ -98,19 +98,16 @@ def test_2d_blocked_matches_chunked():
     from tissue_analysis_tpu.engine import (
         analyze_stack_blocked,
         analyze_stack_chunked,
-        analyze_stack_pallas,
     )
 
     img = voronoi_stack((96, 80), 60, seed=4, voxelsize=(0.5, 2.0))
     stack = LabeledStack.from_array(np.asarray(img), background=1)
     tc = analyze_stack_chunked(stack)
     tb = analyze_stack_blocked(stack)
-    tp = analyze_stack_pallas(stack)
-    for t in (tb, tp):
-        assert t.shape == tc.shape and t.voxelsize == tc.voxelsize
-        for f in ("count", "s1", "s2", "cmin", "cmax",
-                  "pair_lo", "pair_hi", "wall_face_counts", "margin"):
-            assert np.array_equal(getattr(t, f), getattr(tc, f)), f
+    assert tb.shape == tc.shape and tb.voxelsize == tc.voxelsize
+    for f in ("count", "s1", "s2", "cmin", "cmax",
+              "pair_lo", "pair_hi", "wall_face_counts", "margin"):
+        assert np.array_equal(getattr(tb, f), getattr(tc, f)), f
 
 
 def test_assemble_pairs_packed_matches_unpacked():
@@ -193,27 +190,6 @@ def test_entry_cap_compaction_bit_identical():
         entry_cap=256, return_live=True,
     )
     assert int(ovf[4]) == n_live_true and bool(ovf[5])
-
-
-def test_engine_entry_cap_convergence_bit_identical():
-    """Second engine run (with the converged entry_cap in _GOOD_CFG) must
-    be bit-identical to the first (uncapped) run."""
-    from tissue_analysis_tpu import engine
-    from tissue_analysis_tpu.core.stack import LabeledStack
-    from tissue_analysis_tpu.core.synthetic import voronoi_stack
-
-    img = np.asarray(voronoi_stack((24, 32, 40), 60, seed=3))
-    stack = LabeledStack.from_array(img, background=1)
-    key = ("pallas", stack.shape, stack.n_labels)
-    engine._GOOD_CFG.pop(key, None)
-    t1 = engine.analyze_stack_pallas(stack)
-    good = engine._GOOD_CFG.get(key)
-    t2 = engine.analyze_stack_pallas(stack)
-    if good is not None and good.entry_cap:
-        assert engine._GOOD_CFG[key].entry_cap > 0
-    for f in ("count", "s1", "s2", "cmin", "cmax",
-              "pair_lo", "pair_hi", "wall_face_counts", "margin"):
-        np.testing.assert_array_equal(getattr(t1, f), getattr(t2, f))
 
 
 def test_blocked_max_pairs_tightening_bit_identical():
@@ -315,40 +291,6 @@ def test_run_total_cumdiff_matches_segscan():
             blocked._RUN_TOTAL_MODE = old
         for a, b in zip(got, ref):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_packed_moment_readback_matches_host_assembly():
-    """Device-side base-2^32 moment packing must decode to exactly the
-    host split-column assembly, for both the narrow (5-piece) and wide
-    (8-piece) contracts."""
-    import jax.numpy as jnp
-
-    from tissue_analysis_tpu.ops import pallas_block
-
-    rng = np.random.default_rng(5)
-    for npieces in (5, 8):
-        ncols = 4 + 6 * npieces
-        n = 257
-        # post-combine split columns: lo sums < 2^31, hi sums bounded by
-        # the exactness contract (generate well within it)
-        lo = rng.integers(0, 2**31 - 1, size=(n, ncols), dtype=np.int64)
-        hi = rng.integers(0, 2**13, size=(n, ncols), dtype=np.int64)
-        table = np.empty((n, 2 * ncols), dtype=np.int32)
-        table[:, 0::2] = lo.astype(np.int32)
-        table[:, 1::2] = hi.astype(np.int32)
-        gmin = rng.integers(0, 500, size=(n, 3)).astype(np.int32)
-        gmax = gmin + rng.integers(0, 500, size=(n, 3)).astype(np.int32)
-
-        ref = pallas_block.assemble_moments_pallas(table, gmin, gmax)
-        words = np.asarray(
-            pallas_block._pack_final_moments(
-                jnp.asarray(table), jnp.asarray(gmin), jnp.asarray(gmax)
-            )
-        )
-        assert words.shape == (n, 26)
-        got = pallas_block.assemble_moments_packed(words)
-        for k in ("count", "s1", "s2", "cmin", "cmax"):
-            np.testing.assert_array_equal(ref[k], got[k]), k
 
 
 def test_blocked_packed_moments_match_host_assembly():

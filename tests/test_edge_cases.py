@@ -8,10 +8,9 @@ from tissue_analysis_tpu.core.stack import LabeledStack
 from tissue_analysis_tpu.engine import (
     analyze_stack_blocked,
     analyze_stack_chunked,
-    analyze_stack_pallas,
 )
 
-ENGINES = [analyze_stack_blocked, analyze_stack_chunked, analyze_stack_pallas]
+ENGINES = [analyze_stack_blocked, analyze_stack_chunked]
 
 
 def _tables(img, background=1):
@@ -85,7 +84,7 @@ def test_anisotropic_wall_areas():
         voxelsize=(3.0, 0.5, 2.0),
     )
     stack = LabeledStack.from_array(img, voxelsize=img.voxelsize, background=None)
-    t = analyze_stack_pallas(stack)
+    t = analyze_stack_blocked(stack)
     # z-contact of 4x4 voxels, face area vy*vx = 1.0 each
     areas = t.wall_areas()
     assert areas.shape == (1,)
@@ -111,46 +110,6 @@ def test_lineage_file_roundtrip(tmp_path):
         f.write("# comment\n20 21 22\n")
     got = read_lineage(p)
     assert got[20] == [21, 22]
-
-
-def test_auto_engine_routes_by_label_count(monkeypatch):
-    """engine='auto' on TPU must route n >= 2^16 labels to blocked.
-
-    kernel-v2 is ineligible above uint16 label space and the pallas v1
-    fallback measured 3x slower than blocked on silicon (BASELINE.md
-    high-label table) — VERDICT r3 weak #1.
-    """
-    import jax as _jax
-
-    from tissue_analysis_tpu import engine as eng
-
-    calls = []
-    sentinel = object()
-    monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
-    monkeypatch.setattr(
-        eng, "analyze_stack_pallas", lambda s, **kw: calls.append("pallas") or sentinel
-    )
-    monkeypatch.setattr(
-        eng,
-        "analyze_stack_blocked",
-        lambda s, cfg=None, **kw: calls.append("blocked") or sentinel,
-    )
-
-    class _FakeStack:
-        def __init__(self, n):
-            self.n_labels = n
-            self.ndim = 3
-
-    assert eng.analyze_stack(_FakeStack(2031)) is sentinel
-    assert calls == ["pallas"]
-    calls.clear()
-    assert eng.analyze_stack(_FakeStack(1 << 16)) is sentinel
-    assert calls == ["blocked"]
-    calls.clear()
-    # off-TPU always blocked
-    monkeypatch.setattr(_jax, "default_backend", lambda: "cpu")
-    assert eng.analyze_stack(_FakeStack(2031)) is sentinel
-    assert calls == ["blocked"]
 
 
 def test_cell_wall_surface_point_query_absent_pair():

@@ -4,8 +4,8 @@ The reference (``spatial_image_analysis.py :: AbstractSpatialImageAnalysis``,
 pure Python/int64) has no cell-count ceiling; round 1's engines capped at
 n ≤ 23,169 (int32 lo·n+hi pair keys) and the chunked engine allocated dense
 n² accumulators. These tests pin the lifted limits: >100k labels through the
-blocked and chunked engines (bit-identical, analytic ground truth), the
-pallas key path compiled beyond the old cap, and sharded parity at >23k.
+blocked and chunked engines (bit-identical, analytic ground truth) and
+sharded parity at >23k.
 
 The per-label scipy-dilation oracle is O(n·dilation) and unusable at 100k
 cells, so the fixture is a regular grid of box cells with closed-form
@@ -20,7 +20,6 @@ from tissue_analysis_tpu.core.synthetic import grid_stack
 from tissue_analysis_tpu.engine import (
     analyze_stack_blocked,
     analyze_stack_chunked,
-    analyze_stack_pallas,
 )
 from tissue_analysis_tpu.ops import blocked
 
@@ -110,22 +109,6 @@ def test_chunked_matches_blocked_100k(grid100k, table100k):
     for f in ("count", "s1", "s2", "cmin", "cmax",
               "pair_lo", "pair_hi", "wall_face_counts", "margin"):
         assert np.array_equal(getattr(tc, f), getattr(tb, f)), f
-
-
-def test_pallas_key_path_beyond_old_cap():
-    """Compile + run the pallas sweep with a label space past the old
-    23,169-label int32 pair-key ceiling (via n_bucket padding — exercises
-    the static checks and key machinery without a 100k-cell interpret run).
-    """
-    from tissue_analysis_tpu.core.synthetic import voronoi_stack
-
-    img = voronoi_stack((24, 32, 32), 60, seed=7)
-    stack = LabeledStack.from_array(np.asarray(img), background=1)
-    tp = analyze_stack_pallas(stack, n_bucket=30000)
-    tb = analyze_stack_blocked(stack)
-    for f in ("count", "s1", "s2", "cmin", "cmax",
-              "pair_lo", "pair_hi", "wall_face_counts", "margin"):
-        assert np.array_equal(getattr(tp, f), getattr(tb, f)), f
 
 
 def _sharded_beyond_cap_body():

@@ -81,18 +81,3 @@ def test_sharded_blocked_equals_single(shape, ncells, seed, ndev):
     single = analyze_stack_blocked(stack)
     sharded = analyze_sharded_blocked(stack, mesh=make_mesh(ndev))
     _assert_tables_equal(single, sharded)
-
-
-@pytest.mark.parametrize(
-    "shape,ncells,seed,ndev",
-    [((32, 32, 32), 40, 0, 8), ((30, 24, 28), 30, 1, 4)],
-)
-def test_sharded_pallas_equals_single(shape, ncells, seed, ndev):
-    from tissue_analysis_tpu.engine import analyze_stack_blocked
-    from tissue_analysis_tpu.parallel.sharded import analyze_sharded_pallas
-
-    img = voronoi_stack(shape, ncells, seed=seed, voxelsize=(2.0, 0.5, 0.5))
-    stack = LabeledStack.from_array(img, voxelsize=img.voxelsize, background=1)
-    single = analyze_stack_blocked(stack)
-    sharded = analyze_sharded_pallas(stack, mesh=make_mesh(ndev))
-    _assert_tables_equal(single, sharded)

@@ -12,7 +12,6 @@ from tissue_analysis_tpu.core.stack import LabeledStack
 from tissue_analysis_tpu.engine import (
     analyze_stack_blocked,
     analyze_stack_chunked,
-    analyze_stack_pallas,
 )
 from tissue_analysis_tpu.oracle.scipy_oracle import ScipyOracle
 
@@ -33,7 +32,6 @@ def test_random_fields_all_engines(seed):
     tables = [
         analyze_stack_chunked(stack),
         analyze_stack_blocked(stack),
-        analyze_stack_pallas(stack),
     ]
     # the ingest variants must land on the same bits as the resident
     # relabel path — include them in the adversarial-field matrix too

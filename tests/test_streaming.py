@@ -38,16 +38,15 @@ def stack64():
     return np.asarray(voronoi_stack((64, 64, 64), 90, seed=4))
 
 
-@pytest.mark.parametrize("engine", ["blocked", "pallas"])
 @pytest.mark.parametrize("slab_z", [16, 32, 40, 64, 96])
-def test_streamed_bit_equals_resident(stack64, engine, slab_z, request):
+def test_streamed_bit_equals_resident(stack64, slab_z):
     # slab_z=40 exercises non-dividing slabs; 96 exercises the single
     # padded-slab path
     ref = analyze_stack(
         LabeledStack.from_array(stack64, background=1), engine="blocked"
     )
     got = analyze_streamed(
-        stack64, background=1, slab_z=slab_z, engine=engine
+        stack64, background=1, slab_z=slab_z, engine="blocked"
     )
     _assert_tables_equal(got, ref)
 
@@ -149,21 +148,18 @@ def test_streamed_wide_aspect_forced_twokey(monkeypatch, stack64):
     _assert_tables_equal(got, ref)
 
 
-def test_pick_engine_routes_big_label_counts_to_blocked(monkeypatch):
-    """auto must not pick the pallas v1 slab path above 2^16 labels
-    (measured 3x slower than blocked and compile-hostile at Gvox slab
-    shapes — same rule as engine.analyze_stack, VERDICT r3 weak #1)."""
-    import jax as _jax
+@pytest.mark.parametrize("max_pairs", [8, 64])
+def test_streamed_retry_checks_the_config_a_slab_ran_with(max_pairs):
+    """Slabs are dispatched one ahead of their collection, so the shared
+    config can grow between a slab's dispatch and its check. The overflow
+    check must use the config the slab RAN with: five 32-plane slabs whose
+    run counts exceed a tiny explicit pair buffer, so every slab is
+    truncated on its first run and must be rerun."""
+    from tissue_analysis_tpu.ops.blocked import BlockConfig
 
-    from tissue_analysis_tpu import streaming
-    from tissue_analysis_tpu.ops import blocked as _blocked
-    from tissue_analysis_tpu.ops import pallas_block
-
-    monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
-    eng, cfg = streaming._pick_engine("auto", (128, 512, 512), 2031, None)
-    assert eng == "pallas" and isinstance(cfg, pallas_block.PallasConfig)
-    eng, cfg = streaming._pick_engine("auto", (128, 512, 512), 1 << 16, None)
-    assert eng == "blocked" and isinstance(cfg, _blocked.BlockConfig)
-    # explicit pallas request still honored (v1 path, any n)
-    eng, _ = streaming._pick_engine("pallas", (128, 512, 512), 1 << 16, None)
-    assert eng == "pallas"
+    img = np.asarray(voronoi_stack((160, 48, 48), 150, seed=4, sphere=False))
+    ref = analyze_stack(LabeledStack.from_array(img, background=1))
+    got = analyze_streamed(
+        img, background=1, slab_z=32, cfg=BlockConfig(max_pairs=max_pairs)
+    )
+    _assert_tables_equal(got, ref)

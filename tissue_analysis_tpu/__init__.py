@@ -1,6 +1,6 @@
-"""tissue_analysis_tpu — TPU-native 3D tissue morphometrics.
+"""tissue_analysis_tpu — accelerator-native 3D tissue morphometrics.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of
+A ground-up JAX/XLA rebuild of the capabilities of
 ``VirtualPlants/tissue_analysis`` (``vplants.tissue_analysis``): per-cell
 feature extraction (volume, barycenter, bounding box, inertia axes),
 cell-adjacency / wall-surface analysis, epidermis (L1) and border-cell

@@ -51,7 +51,7 @@ class AnalysisConfig:
     real: bool = True
     min_contact_area: Optional[float] = None
     connectivity: int = 1
-    engine: str = "auto"  # 'auto' | 'blocked' | 'pallas' | 'chunked'
+    engine: str = "auto"  # 'auto' | 'blocked' | 'chunked'
 
 
 # sentinel distinguishing "background not passed" from an explicit value

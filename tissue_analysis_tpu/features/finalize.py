@@ -1,4 +1,4 @@
-"""Exact-integer-moment finalization shared by the TPU engine and the oracle.
+"""Exact-integer-moment finalization shared by the device engines and the oracle.
 
 SURVEY.md §7.2 exactness rule: all per-label sums (count, Σcoord, Σcoord·coord,
 coordinate min/max) are accumulated exactly as integers; physical-unit

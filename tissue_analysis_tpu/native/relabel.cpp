@@ -1,6 +1,6 @@
 // Native ingest kernel: dense relabeling of a labeled voxel stack.
 //
-// TPU-native equivalent of the host-side densification step (SURVEY.md §7.1):
+// Native equivalent of the host-side densification step (SURVEY.md §7.1):
 // original label ids -> contiguous segments 0..N-1, background pinned to
 // segment 0. The pure-numpy path (`np.unique(..., return_inverse=True)`) is a
 // full O(V log V) sort over the stack (seconds at 512^3); this is a two-pass

@@ -7,13 +7,12 @@ reference computes with separate `nd.sum` / `nd.center_of_mass` /
 (``spatial_image_analysis.py :: volume / center_of_mass / boundingbox /
 inertia_axis``), in a single sweep (SURVEY.md §7.2).
 
-Exactness & TPU-stability design:
+Exactness design:
 - all accumulation is int32 with per-chunk bounds chosen so nothing can
   overflow; second moments are split into hi/lo parts (shift ``s``) so every
   summand is < 2**s;
-- chunk partial tables are combined into exact int64 on the host — the TPU
-  never needs emulated int64 (SURVEY.md §0.1 found large int64 scatters crash
-  the v5e worker);
+- chunk partial tables are combined into exact int64 on the host, so the
+  device never accumulates in int64;
 - per-chunk work is a rectangular `segment_sum` / `segment_min` / `segment_max`
   (one scatter per chunk, F columns wide), driven by `lax.map` so device
   memory stays at one chunk of features.

@@ -7,10 +7,9 @@ a first-class batch:
 - `analyze_series`: per-timepoint FeatureTables with ONE compilation shared
   across frames — the blocked sweep is compiled for a bucketed label count
   (next power of two ≥ every frame's), so differing cell counts don't
-  retrigger compilation. Frames stream through the single-chip engine, or
-  run data-parallel over a `batch` mesh axis (each device takes a slice of
-  the timepoints — the embarrassingly-parallel DP axis of SURVEY.md §2.3;
-  multi-host deployments put this axis on DCN).
+  retrigger compilation. Frames stream through the single-device engine,
+  optionally placed round-robin over several devices (``devices=``); they
+  are still analyzed one after another.
 - `graph_series`: the per-timepoint cell PropertyGraphs.
 - `temporal_graph_from_images`: full pipeline — per-frame graphs +
   lineage mappings → one `TemporalPropertyGraph` (the reference's
@@ -86,8 +85,7 @@ def analyze_series(
     All frames must share one shape for compile reuse (standard for a
     registered confocal series); mixed shapes fall back to per-shape
     compilation transparently. `devices`: optional device list — frames are
-    round-robined across them (data parallelism over timepoints; results
-    are independent of placement).
+    placed round-robin across them (results are independent of placement).
     """
     import jax
 
@@ -116,37 +114,15 @@ def analyze_series(
             )
         placed.append(s)
 
-    use_pallas = jax.default_backend() == "tpu"
-    tables: List[Optional[FeatureTable]] = [None] * len(placed)
-    if use_pallas:
-        # two-phase data parallelism: dispatch every frame's sweep first
-        # (frames on different devices run concurrently), then collect
-        from tissue_analysis_tpu.engine import (
-            collect_stack_pallas,
-            dispatch_stack_pallas,
-        )
-
-        handles: List = [None] * len(placed)
-        for i, s in enumerate(placed):
-            if s.ndim == 3:
-                try:
-                    handles[i] = dispatch_stack_pallas(
-                        s, n_bucket=bucket_by_shape[s.shape]
-                    )
-                except ValueError:
-                    handles[i] = None
-        for i, h in enumerate(handles):
-            if h is not None:
-                tables[i] = collect_stack_pallas(h)
-
-    for i, s in enumerate(placed):
-        if tables[i] is not None:
-            continue
+    # frames run in sequence: each ends in a host readback before the next
+    # is dispatched, so frames placed on different devices do not overlap
+    tables: List[FeatureTable] = []
+    for s in placed:
         if s.ndim != 3:
-            tables[i] = analyze_stack(s)
+            tables.append(analyze_stack(s))
         else:
-            tables[i] = analyze_stack_blocked(
-                s, n_bucket=bucket_by_shape[s.shape]
+            tables.append(
+                analyze_stack_blocked(s, n_bucket=bucket_by_shape[s.shape])
             )
     return tables
 
